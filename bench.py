@@ -16,6 +16,7 @@ Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "secondary"}.
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 
@@ -70,7 +71,18 @@ def _throughput(L, n_chains, device):
 
 
 def main():
+    from elphdynamics_tpu.utils.compile_cache import enable_compile_cache
+
     accel = jax.devices()[0]
+    if accel.platform != "gpu":
+        sys.exit(f"bench.py measures the GPU; JAX found {accel.platform}")
+    enable_compile_cache()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"# device: platform={accel.platform} kind={accel.device_kind} "
+          f"count={len(jax.devices())} nvidia-smi: {card}", flush=True)
     value, acc, iters = _throughput(8, 128, accel)
     value32, acc32, iters32 = _throughput(32, 32, accel)
 

@@ -1,10 +1,10 @@
-"""elphdynamics_tpu — a TPU-native (JAX/XLA/Pallas) electron-phonon QMC framework.
+"""elphdynamics_tpu — a JAX/XLA electron-phonon QMC framework for accelerators.
 
 A from-scratch rebuild of the capabilities of the reference package
-``cohensbw/ElPhDynamics`` (Julia), re-architected for TPU hardware:
+``cohensbw/ElPhDynamics`` (Julia), re-architected for accelerators:
 
 * space-time fields live as ``[N_site, L_tau]`` arrays (imaginary time on the
-  fast/lane axis, sites on sublanes) with an optional leading Markov-chain
+  fast, contiguous axis) with an optional leading Markov-chain
   batch axis mapped over a ``jax.sharding.Mesh``;
 * the checkerboard decomposition of the hopping matrix is host-preprocessed
   into per-group partner *permutations* so that each group application is one

@@ -19,8 +19,8 @@ def main():
                     help="datafolder suffix id (auto-incremented if omitted)")
     ap.add_argument("--chains", type=int, default=1,
                     help="independent Markov chains batched on device "
-                         "(0 = auto: the measured throughput-peak batch "
-                         "for the lattice size, BASELINE.md)")
+                         "(0 = auto: a heuristic batch for the lattice "
+                         "size, simulation.auto_chains)")
     ap.add_argument("--devices", type=int, default=1,
                     help="devices to shard the chains over (0 = all local "
                          "devices); chains must be a multiple of devices")
@@ -29,35 +29,24 @@ def main():
                          "devices (Holstein HMC; for lattices that outgrow "
                          "a single chip; 0 = all local devices)")
     ap.add_argument("--x64", action="store_true",
-                    help="enable float64 (CPU parity mode; TPU runs f32)")
+                    help="enable float64 (CPU parity mode; accelerator "
+                         "runs use f32)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="capture an XLA profiler trace (TensorBoard format) "
                          "of the whole run into DIR")
     ap.add_argument("--multihost", action="store_true",
                     help="initialize jax.distributed (one process per host; "
-                         "cluster autodetected from the environment on TPU "
-                         "pods). Every process runs this same command; host "
+                         "cluster settings as in parallel/multihost.py). "
+                         "Every process runs this same command; host "
                          "IO happens on process 0 only. Combine with "
                          "--devices 0 to span all global devices.")
     args = ap.parse_args()
 
-    import os
-
     import jax
 
-    # Honor an explicit virtual-device request: some hosted runtimes
-    # force-register their accelerator platform ahead of JAX_PLATFORMS, so
-    # a CLI run asked to use N virtual CPU devices
-    # (XLA_FLAGS=--xla_force_host_platform_device_count=N JAX_PLATFORMS=cpu)
-    # would silently land on the single real chip instead.
-    if ("xla_force_host_platform_device_count"
-            in os.environ.get("XLA_FLAGS", "")
-            and os.environ.get("JAX_PLATFORMS", "") == "cpu"):
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
+    from elphdynamics_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     if args.x64:
         jax.config.update("jax_enable_x64", True)
 

@@ -18,7 +18,7 @@ Metropolis accept/reject:
   (HMC.jl:410-412,453), encoded here as a flag mask that deactivates the
   remaining (masked) CG iterations rather than branching.
 
-TPU shape conventions: x, v are [Nph, Lτ]; the two spin systems are stacked
+Shape conventions: x, v are [Nph, Lτ]; the two spin systems are stacked
 on a leading axis and solved as ONE batched CG (the reference solves them
 serially, HMC.jl:851-903). Chains vmap over the whole step.
 """
@@ -53,8 +53,7 @@ class HMCConfig(NamedTuple):
     block: bool = False
     # split in-loop operator precision ([solver] loop_precision; see
     # dynamics/solve._cg_operators — tol¹ trajectory solves only, endpoints
-    # and verification stay at HIGHEST; default "high" per the measured
-    # bench_deep.py A/B, see SolverConfig.loop_precision)
+    # and verification stay at HIGHEST; see SolverConfig.loop_precision)
     loop_precision: str | None = "high"
     # trajectory integrator: "leapfrog" (the reference's only integrator,
     # HMC.jl:343-638) or "2mn" — Omelyan/Mushrabi/Peshkov 2nd-order

@@ -31,20 +31,20 @@ class SolverConfig(NamedTuple):
     kind: str = "cg"      # "cg" | "bicgstab" | "gmres" (Models.jl dispatch)
     restart: int = 20     # GMRES restart length
     # solve the nᵥ-RHS estimator systems with block CG (solvers.block_cg —
-    # beyond reference scope; TPU knob, [solver] block in the TOML)
+    # beyond reference scope; [solver] block in the TOML)
     block: bool = False
-    # split precision policy ([solver] loop_precision, TPU knob): run the
-    # in-CG-loop fermion matvecs at this MXU precision ("high" = bf16×3,
-    # ~half of HIGHEST's passes) while the residual verification, retry
-    # ladder, forces, energies, and endpoint quantities stay at HIGHEST.
-    # "highest" = the reference-faithful full-f32 operator everywhere.
-    # Default "high": measured +3%/+7%/+10%/+19% across (8×8, 32×32) ×
-    # β ∈ {4, 16} with acceptance, |ΔH|, and flag counts unchanged
-    # (scripts/bench_deep.py; BASELINE.md §split precision) — every solve
-    # is still HIGHEST-verified, so a pathological configuration degrades
-    # to a flagged retry, not a wrong answer. Only the dense-matmul
-    # (Holstein, N ≤ dense_threshold) operator has a pass count to cut;
-    # the gather+FMA fold path (SSH, large N) ignores the knob.
+    # split precision policy ([solver] loop_precision): run the in-CG-loop
+    # fermion matvecs with this dot algorithm — "high" is the explicit
+    # 3-pass bf16 product BF16_BF16_F32_X3 (≈16 mantissa bits per product,
+    # models/holstein.resolve_precision) — while the residual verification,
+    # retry ladder, forces, energies, and endpoint quantities stay at
+    # HIGHEST. "highest" = the reference-faithful full-f32 operator
+    # everywhere. Every solve is still HIGHEST-verified, so a pathological
+    # configuration degrades to a flagged retry, not a wrong answer.
+    # Acceptance, |ΔH| and flag counts were unchanged under "high"
+    # (scripts/bench_deep.py); its speed on H100 is not measured. Only the
+    # dense-matmul (Holstein, N ≤ dense_threshold) operator has a matmul to
+    # cut; the gather+FMA fold path (SSH, large N) ignores the knob.
     loop_precision: str | None = "high"
 
 
@@ -96,7 +96,7 @@ def _cg_operators(ops: ModelOps, params, derived, scfg: SolverConfig):
     """(in-loop, verification) MᵀM operator pair for the CG paths.
 
     With ``loop_precision`` set (and not "highest"), the while-loop matvecs
-    run at the cheaper MXU precision while verification/retry use the full
+    run with the cheaper dot algorithm while verification/retry use the full
     HIGHEST operator. Gated to tol ≥ 1e-6: the tol² endpoint solves iterate
     to the f32 noise floor, which the cheaper operator would raise — they
     keep the reference-faithful operator.

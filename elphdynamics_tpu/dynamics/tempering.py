@@ -26,7 +26,7 @@ Chain layout: C = K·M chains, rung r owns the contiguous block
 rungs r±1 (even/odd pair parity alternates per attempt, the standard
 checkerboard schedule).
 
-TPU shape: everything is one batched program — the K·M refreshes, the
+Shape: everything is one batched program — the K·M refreshes, the
 K·M cross solves (batched CG over all chains at once) and the masked
 swap are single vmapped calls; no per-pair Python loops.
 """

@@ -111,7 +111,7 @@ def _build_model(cfg: dict, rng: np.random.Generator, dtype):
     if "holstein" in cfg:
         h = cfg["holstein"]
         # [[holstein.t]] imag: per-bond complex hopping (Peierls phase) —
-        # TOML has no complex literal, so t = val + i·imag (TPU addition;
+        # TOML has no complex literal, so t = val + i·imag (an addition;
         # the reference's type surface admits complex t, Models.jl:20, but
         # its TOML cannot express it)
         t_assign = [
@@ -251,11 +251,11 @@ def build_setup(cfg: dict, datafolder: str, dtype=None) -> SimulationSetup:
                               maxiter=sol.get("maxiter", 1000),
                               kind=sol.get("type", "CG").lower(),
                               restart=sol.get("restart", 20),
-                              # TPU addition: block CG over the nᵥ estimator
+                              # addition: block CG over the nᵥ estimator
                               # systems (solvers.block_cg)
                               block=bool(sol.get("block", False)),
-                              # TPU addition: split in-loop operator
-                              # precision ("high" = bf16×3 in the CG loop,
+                              # addition: split in-loop operator
+                              # precision ("high" = 3-pass bf16 in the CG loop,
                               # HIGHEST verification/endpoints — see
                               # dynamics/solve._cg_operators; "highest"
                               # restores the reference-faithful operator)
@@ -263,14 +263,14 @@ def build_setup(cfg: dict, datafolder: str, dtype=None) -> SimulationSetup:
     kpm_cfg = None
     if "preconditioner" in sol:
         p = sol["preconditioner"]
-        # max_order: static cap on the per-ω Chebyshev orders (TPU addition —
+        # max_order: static cap on the per-ω Chebyshev orders (an addition —
         # the reference's orders are fully dynamic; jit needs a static bound).
         # Small caps trade preconditioner quality for per-apply cost; see
         # BASELINE.md for the measured sweep.
         kpm_cfg = KPMConfig(n_power=p.get("n", 20), buf=p.get("buf", 0.05),
                             c1=p.get("c1", 1.0), c2=p.get("c2", 1.0),
                             max_order=p.get("max_order", 64),
-                            # TPU additions (see ops/kpm.py): DFT-matmul
+                            # additions (see ops/kpm.py): DFT-matmul
                             # τ↔ω transforms (auto by Lτ) and the flattened
                             # Chebyshev stack experiment
                             dft_matmul=p.get("dft_matmul", None),

@@ -6,7 +6,7 @@ pairwise combinations (i, j) of vectors build translation-averaged two-point
 and four-point tensors via space-time FFT convolution with antiperiodic
 doubling of the τ axis (GreensFunctions.jl:239-288,351-439).
 
-TPU-native restructuring:
+Restructuring vs the reference:
 
 * the nᵥ linear systems are solved as ONE batched CG (the reference does nᵥ
   serial solves, GreensFunctions.jl:209-231);
@@ -101,19 +101,11 @@ def _neg_index(A, axes):
 
 
 # DFT-matmul lowering of the convolution transforms (the KPM dft_matmul
-# trick, ops/kpm.py:_dft_tables, applied to the measurement stage): XLA
-# lowers small non-power-of-2 FFTs (the 2Lτ and L axes here are rarely
-# powers of two) far off the MXU. None = auto (TPU backend, non-pow2 axis,
-# size ≤ 512); True/False force it for tests and A/B benches. The matmuls
-# run at HIGHEST precision — these transforms feed physics observables, not
-# a preconditioner.
-DFT_MATMUL: bool | None = None
-
-
-def _use_dft(n: int) -> bool:
-    if DFT_MATMUL is not None:
-        return DFT_MATMUL
-    return (jax.default_backend() == "tpu") and (n & (n - 1)) != 0 and n <= 512
+# trick, ops/kpm.py:_dft_tables, applied to the measurement stage). Off by
+# default (jnp.fft); True forces it for tests and A/B benches. The matmuls
+# run at HIGHEST precision — these transforms feed physics observables, not a
+# preconditioner.
+DFT_MATMUL: bool = False
 
 
 def _dft_mat(n: int, inverse: bool) -> np.ndarray:
@@ -124,7 +116,7 @@ def _dft_mat(n: int, inverse: bool) -> np.ndarray:
 
 def _fft_axis(v, axis: int, inverse: bool):
     n = v.shape[axis]
-    if not _use_dft(n):
+    if not DFT_MATMUL:
         return (jnp.fft.ifft if inverse else jnp.fft.fft)(v, axis=axis)
     cdtype = jnp.result_type(v.dtype, jnp.complex64)
     F = jnp.asarray(_dft_mat(n, inverse), cdtype)

@@ -13,7 +13,7 @@ two random vectors of each (i, j) pair into translational averages:
 * BondPairGreens (:2390-2483): ⟨Δ[a,b,r′](τ,r)·Δ⁺[c,d,r″](0,0)⟩ — 1
   convolution term + τ=β boundary identities.
 
-TPU-native: every term is batched over ALL vector pairs (i, j) at once (the
+Batched: every term is batched over ALL vector pairs (i, j) at once (the
 reference loops pairs serially); the translational averages are batched FFTs
 over [P·n_bond_pairs, L1, L2, L3, Lτ] blocks.
 """
@@ -54,7 +54,7 @@ class BondFields:
     def __init__(self, lattice, R, MinvR, pair_idx):
         iu, ju = pair_idx
         self.cplx = bool(jnp.iscomplexobj(R))
-        # complex128 canonicalizes to complex64 when x64 is off (TPU)
+        # complex128 canonicalizes to complex64 when x64 is off (f32 production)
         Rc = G.to_cell_layout(lattice, R).astype(jnp.complex128)
         if self.cplx:
             Rc = jnp.conj(Rc)

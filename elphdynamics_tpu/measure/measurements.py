@@ -16,7 +16,7 @@ measurement step accumulates, per sampler sweep:
   normalisation by bin_size·C(nᵥ,2) (:590-629), and Simpson-integrated
   susceptibilities (Pair/Charge/Spin/BondPair, :2550-2572).
 
-TPU-native restructuring: the reference loops over every random-vector pair
+Restructuring: the reference loops over every random-vector pair
 (i, j), accumulating per-pair measurements (:545-566). Every accumulated
 quantity is *linear* in the per-pair estimator tensors, so the step here
 assembles everything once from pair-summed tensors (see greens.py) plus
@@ -126,13 +126,8 @@ def zero_container(ops: ModelOps, mspec: MeasurementSpec, dtype=None):
         dtype = default_real_dtype()
     cdtype = jnp.complex128 if dtype == jnp.float64 else jnp.complex64
 
-    from elphdynamics_tpu.utils.transfer import host_to_device
-
     def mk(group, complex_valued):
-        # host build + shimmed transfer: complex / high-rank uploads are not
-        # implemented on all TPU runtimes (utils/transfer.py)
-        return {k: host_to_device(np.zeros(v, np.dtype(cdtype if complex_valued
-                                                       else dtype)))
+        return {k: jnp.zeros(v, cdtype if complex_valued else dtype)
                 for k, v in group.items()}
 
     return {

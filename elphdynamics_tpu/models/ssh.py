@@ -6,7 +6,7 @@ matrix uses a *time-dependent* checkerboard factorisation
 
     B(τ) = exp(-Δτ·K[x(τ)]) · exp(+Δτ·μ)        (SSHModels.jl:587-601)
 
-TPU-native layout: phonon fields are ``[..., Nph, Lτ]``; the per-(τ,bond)
+Layout: phonon fields are ``[..., Nph, Lτ]``; the per-(τ,bond)
 checkerboard coefficients are a ``[Nbonds, Lτ]`` array computed inside the
 jitted step (replacing the mutated caches of ``update_model!``,
 SSHModels.jl:510-562). The inherently sequential ``muldMdx!`` walk over bonds
@@ -79,7 +79,7 @@ class SSHSpec:
     bond_to_definition: np.ndarray  # [Nbonds] bond -> bond-definition index
     bond_defs: tuple = ()        # ((o1, o2, (dL...), has_phonon), ...)
     # build per-τ dense exp(−Δτ·K[x(τ)]) matrices inside the jitted step and
-    # apply them as batched MXU matmuls (gated by memory: Lτ·N² elements)
+    # apply them as batched matmuls (gated by memory: Lτ·N² elements)
     dense_ckb: bool = False
 
     def __hash__(self):
@@ -221,9 +221,9 @@ def build_ssh(
                         primary[sb_ + k] = primary[sa + k]
 
     # Per-τ dense exp(−Δτ·K[x(τ)]) path: OFF by default. The per-(chain,τ)
-    # matrices make every apply a batched MATVEC — measured 4-6× slower than
-    # the group fold on v5e at 8×8/16×16 (172 vs 971 sweeps/s; the fold is
-    # pure gather+FMA over ngroups passes). The densifier (dense_K) remains
+    # matrices make every apply a batched MATVEC (N² bytes read per N·Lτ
+    # outputs) where the group fold is ngroups gather+FMA passes; not
+    # measured on H100. The densifier (dense_K) remains
     # for write_K_matrix and testing; the KPM averaged operator keeps its
     # own single-slice densification (ops/kpm._dense_avg), which IS a win.
     dense_ckb = False
@@ -304,7 +304,7 @@ class SSHDerived(NamedTuple):
 def dense_K(spec: SSHSpec, cosh_b, sinh_b):
     """Per-τ dense exp(−Δτ·K[x(τ)]) built by folding the checkerboard groups
     on [Lτ, N, N] identity stacks — traced inside jit (the coefficients are
-    x-dependent), then applied as batched MXU matmuls."""
+    x-dependent), then applied as batched matmuls."""
     ckb = spec.ckb
     N, Lt = spec.Nsites, spec.Ltau
     D = jnp.broadcast_to(jnp.eye(N, dtype=cosh_b.dtype), (Lt, N, N))
@@ -363,7 +363,7 @@ def _tau_sign_last(Ltau, dtype):
 
 
 def _apply_K(spec: SSHSpec, coeffs, y, transpose=False):
-    """exp(−Δτ·K[x(τ)])·y — per-τ batched MXU matmul in dense mode, the
+    """exp(−Δτ·K[x(τ)])·y — per-τ batched matmul in dense mode, the
     checkerboard group fold otherwise."""
     Kd = getattr(coeffs, "Kd", None)
     if Kd is not None:

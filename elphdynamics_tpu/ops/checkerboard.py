@@ -1,4 +1,4 @@
-"""Checkerboard decomposition of the hopping-matrix exponential, TPU-native.
+"""Checkerboard decomposition of the hopping-matrix exponential.
 
 The reference (Checkerboard.jl) applies ``exp(-Δτ·K)`` matrix-free as an
 ordered product of 2×2 bond rotations ``[c s; s̄ c]``, looping over bonds with
@@ -6,7 +6,7 @@ an inner SIMD loop over imaginary time (Checkerboard.jl:57-121). Bonds are
 greedily grouped into sweeps of mutually disjoint bonds
 (Checkerboard.jl:471-515).
 
-TPU-native formulation: within one group every site appears in at most one
+Formulation: within one group every site appears in at most one
 bond, so the group's action is, for the whole ``[N, Lτ]`` space-time block,
 
     y  <-  c_site * y + s_site * y[partner, :]
@@ -15,7 +15,7 @@ where ``partner`` is a static involutive permutation of sites (identity for
 untouched sites), and ``c_site/s_site`` are per-site coefficients gathered
 from per-bond tables. A full multiply is a short unrolled fold over the
 (few, static) groups — pure gathers + fused multiply-adds that XLA maps onto
-the VPU with no scalar loops.
+fused elementwise loops with no scalar loops.
 
 * transpose  = reversed group order (Checkerboard.jl:149-230)
 * inverse    = reversed order with the sign of ``s`` flipped (Checkerboard.jl:238-316)
@@ -109,7 +109,7 @@ class CheckerboardSpec:
 
 
 def build_checkerboard_spec(nsites: int, neighbor_table: np.ndarray) -> CheckerboardSpec:
-    """Build the TPU-friendly group/permutation representation.
+    """Build the group/permutation representation.
 
     ``neighbor_table`` is (2, nbonds) in *canonically sorted* order (see
     ``lattice.sort_neighbor_table``). The returned ``order`` array maps
@@ -234,9 +234,9 @@ def dense_matrix(spec: CheckerboardSpec, cosh_b, sinh_b, inverse: bool = False) 
     """The exact dense [N, N] matrix of the checkerboard product, assembled
     host-side in float64 from the same elementary 2×2 rotations.
 
-    TPU fast path: for time-independent hopping the whole multi-group fold
+    Fast path: for time-independent hopping the whole multi-group fold
     collapses to ONE constant matrix, so ``exp(−Δτ·K)·v`` becomes a single
-    MXU matmul instead of ``ngroups`` gather+FMA passes over HBM. The matrix
+    matmul instead of ``ngroups`` gather+FMA passes over HBM. The matrix
     equals the group-fold product bit-for-bit up to f64 rounding.
     """
     from elphdynamics_tpu import native

@@ -20,7 +20,7 @@ on static spectra) and the projection is always tolerance-safe — every
 solve still converges to tol and HMC acceptance is unchanged — but the
 default (`k = 0`) is the measured optimum for every production config.
 
-TPU-first design (no per-iteration cost, no small eigenproblems in the
+Design (no per-iteration cost, no small eigenproblems in the
 hot loop):
 
 * The deflation basis ``W`` ([k, Nsites, Lτ], Euclidean-orthonormal,
@@ -36,7 +36,7 @@ hot loop):
   KPM-preconditioned deep-β spectrum has λmax ≈ 8 with the bulk at λ≈1,
   so its per-step bulk damping is only ≈0.88 and the basis never
   concentrates (flat A/B, BASELINE.md §deep-β). Filter applies are
-  [k, N, Lτ]-batched operator calls — MXU-shaped work, unlike k
+  [k, N, Lτ]-batched operator calls — matmul-shaped work, unlike k
   sequential matvecs.
 * Per solve, CG applies the **init-projection**
   ``x0 += W·(WᵀAW)⁻¹·Wᵀr0``, ``r0 -= AW·(WᵀAW)⁻¹·Wᵀr0`` using the
@@ -199,7 +199,7 @@ def refresh(st: DeflationState, apply_A: Callable, apply_P: Callable,
 
     # --- projector normal matrix: chol(WᵀAW) as ONE [k,NL]×[NL,k] matmul —
     # an fdot outer-product form would materialize a [k, k, N·Lτ] temp
-    # (gigabytes at deep β); f32 HIGHEST keeps the MXU without bf16 loss
+    # (gigabytes at deep β); HIGHEST keeps full f32 products
     AW = apply_A(W)
     k = W.shape[0]
     # C_ij = w_i†·A·w_j (Hermitian PD; conj is the identity on real W)

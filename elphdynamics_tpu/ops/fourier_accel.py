@@ -63,10 +63,10 @@ def build_mass(omega: np.ndarray, dtau: float, Ltau: int, blocks) -> np.ndarray:
 
 # ``table^power`` spectra are symmetric in k (both conventions use
 # cos(2πk/L)), so the circulant F⁻¹·diag·F is REAL — one [Lτ, Lτ] matmul per
-# phonon replaces the FFT pair. XLA lowers the small non-power-of-2 FFT far
-# off the MXU; below this τ length the matmul wins decisively (measured on
-# v5e). Built once per (table, power) at trace time — the tables are
-# trace-time constants everywhere except inside shard_map (tracer → FFT).
+# phonon replaces the FFT pair: one fused matmul instead of a small
+# non-power-of-2 FFT pair (the crossover is not measured on H100). Built
+# once per (table, power) at trace time — the tables are trace-time
+# constants everywhere except inside shard_map (tracer → FFT).
 _CIRCULANT_MAX_LTAU = 256
 _circ_cache: dict = {}
 

@@ -18,9 +18,8 @@ slices at the same chunk-parity have disjoint images — two ``mulM`` calls
 on parity-masked column sums recover every M·W column. G is
 block-tridiagonal over chunks with the antiperiodic corner, assembled
 dense and explicitly inverted by a Jacobi-scaled Newton–Schulz sweep
-(pure MXU matmuls — TPU's cholesky/triangular-solve kernels are
-row-sequential) once per (re)build, so the per-CG-iteration coarse solve
-is a single MXU matmul.
+(pure matmuls — cholesky/triangular solves are row-sequential) once per
+(re)build, so the per-CG-iteration coarse solve is a single matmul.
 
 Reference bar being surpassed: KPMPreconditioners.jl:426-481 is the
 reference's only answer to deep-β conditioning and fails in this regime
@@ -160,12 +159,11 @@ def _build(ops, params, derived, T, cfg: NearNullConfig,
 
 
 def _spd_inverse(G, cfg: NearNullConfig, X_prev=None):
-    """Jacobi-scaled Newton–Schulz SPD inverse — pure matmuls (TPU's
-    cholesky/triangular-solve kernels are row-sequential and dominate the
-    refresh wall). Cold start: 20 sweeps (converges modes down to
-    λ̃ ~ 1e-5 of the scaled spectrum). Warm start from the previous
-    refresh's inverse: 6 sweeps with a contraction safeguard — NS diverges
-    iff ||I − X₀G̃|| ≥ 1, so one extra matmul checks the row-sum bound and
+    """Jacobi-scaled Newton–Schulz SPD inverse — pure matmuls
+    (cholesky/triangular solves are row-sequential). Cold start: 20
+    sweeps (converges modes down to λ̃ ~ 1e-5 of the scaled spectrum).
+    Warm start from the previous refresh's inverse: 6 sweeps with a
+    contraction safeguard — NS diverges iff ||I − X₀G̃|| ≥ 1, so one extra matmul checks the row-sum bound and
     falls back to the cold initializer on the (rare) oversized field move.
     The jitter bounds the scaled condition number so f32 stays safe even
     when a stale basis leaves near-dead directions in G."""

@@ -2,7 +2,7 @@
 
 The reference has NO distributed execution — parallelism across chains is N
 separate OS processes writing to different datafolders
-(ElPhDynamics.jl:90-95,166-186). The TPU-native replacement (SURVEY §5):
+(ElPhDynamics.jl:90-95,166-186). The replacement here (SURVEY §5):
 
 * a 1-D ``jax.sharding.Mesh`` with axis ``"chain"``;
 * sampler state carries a leading chain axis sharded over that axis
@@ -14,7 +14,7 @@ separate OS processes writing to different datafolders
   the jitted step reduces over the chain axis.
 
 Chains-per-chip > 1 is encouraged: the per-chain working set (a few
-[N, Lτ] fields) is far below VMEM/HBM limits, and batching chains turns the
+[N, Lτ] fields) is far below device-memory limits, and batching chains turns the
 bandwidth-bound checkerboard/elementwise work into larger fused kernels.
 """
 

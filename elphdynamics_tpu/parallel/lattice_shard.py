@@ -15,14 +15,14 @@ stays local). The checkerboard group fold becomes a halo-exchange pattern:
 
 Prototype scope (asserted at plan time, not silently wrong):
 
-* matrix-free group-fold checkerboard (the dense-MXU path would shard as a
+* matrix-free group-fold checkerboard (the dense-matmul path would shard as a
   plain ``pjit`` matmul instead);
 * equal contiguous site blocks, every bond connecting ring-adjacent blocks —
   true for the standard orbit-fastest row-major orderings of the square /
   cubic / honeycomb lattices sharded along their slowest axis.
 
 Reference parity note: the reference has no distributed execution at all
-(ElPhDynamics.jl:90-95); this component is TPU-native new scope.
+(ElPhDynamics.jl:90-95); this component is new scope.
 """
 
 from __future__ import annotations
@@ -626,7 +626,8 @@ def _kpm_local(plan: ShardPlan, kcfg, Ltau, N, dtype, axis, ops_of,
         lam_mag = (lam_hi - lam_lo) / 2
         xs = lam_mag * nodes + lam_avg
         f = 1.0 / (1.0 - jnp.exp(-1j * phis)[None, :] * xs[:, None])
-        coeff = scale * (cosmat @ f)
+        coeff = scale * jnp.matmul(cosmat, f,
+                                   precision=jax.lax.Precision.HIGHEST)
         # full-spectrum order criterion: the hard frequencies sit at BOTH
         # ends (e^{−iφ} → 1 as φ → 0 or 2π) — kpm.setup's phis_eff
         phis_eff = jnp.minimum(phis, 2.0 * np.pi - phis) if cplx else phis

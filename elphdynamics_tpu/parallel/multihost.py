@@ -13,12 +13,13 @@ Contract:
 
 * call :func:`init_multihost` (or ``simulate(..., multihost=True)`` /
   CLI ``--multihost``) BEFORE any other jax use in the process; pass the
-  coordinator explicitly or rely on the cluster-autodetect environment
-  (on TPU pods ``jax.distributed.initialize()`` autodetects);
+  coordinator explicitly or rely on a cluster environment that
+  ``jax.distributed.initialize()`` autodetects (a GPU cluster without
+  one needs ``coordinator_address``/``num_processes``/``process_id``);
 * every process runs the same ``simulate()`` call; ``--devices 0``
   (all global devices) is the normal choice;
 * resume needs the datafolder reachable from every process (shared
-  filesystem — the usual TPU-pod NFS/GCS setup);
+  filesystem, e.g. NFS);
 * ``--site-devices`` (lattice sharding) composes: the site (or combined
   chain × site) mesh spans the global device set, the halo ppermutes ride
   the cross-process links, and the off-hot-loop gathers (special updates,
@@ -42,9 +43,9 @@ __all__ = ["init_multihost", "is_multihost", "is_primary", "fetch",
 
 def init_multihost(**kwargs) -> None:
     """Idempotent ``jax.distributed.initialize`` (autodetects the cluster
-    from the environment when called without arguments — TPU pods, or
-    ``coordinator_address``/``num_processes``/``process_id`` kwargs for
-    explicit CPU/GPU clusters)."""
+    from the environment when called without arguments where the cluster
+    manager supports it; otherwise pass ``coordinator_address``/
+    ``num_processes``/``process_id`` explicitly)."""
     try:
         state = jax.distributed.global_state
         if getattr(state, "client", None) is not None:

@@ -1,7 +1,7 @@
 """Iterative linear solvers as on-device ``lax.while_loop`` programs.
 
-Reference: IterativeSolvers.jl. Differences forced by the TPU execution
-model:
+Reference: IterativeSolvers.jl. Differences forced by the accelerator
+execution model:
 
 * **Batched right-hand sides.** The reference solves one system at a time
   (e.g. the Green's-function estimator does nᵥ serial CG solves,
@@ -14,7 +14,7 @@ model:
   of ``Models.ldiv!`` (Models.jl:74-186) are masks/flags carried through the
   loop state rather than Python control flow.
 
-Dtype policy (f32 fields on TPU, f64 under x64):
+Dtype policy (f32 fields on the accelerator, f64 under x64):
 
 * **entry/exit quantities** — |b|, the initial residual, and the
   post-solve residual *verification* — accumulate through
@@ -320,9 +320,9 @@ def block_cg(
     * α/β come from the explicit Gram solves ``(PᵀAP)α = PᵀR`` and
       ``(PᵀAP)β = −QᵀZ`` rather than the ρ-recursion — self-correcting
       under inexact arithmetic.
-    * **all Gram/update einsums are pinned to HIGHEST precision** — the
-      TPU default (single-pass bf16) injects ~8e-3 noise into the shared
-      Gram and the X/R updates, measured on-chip to blow the iteration
+    * **all Gram/update einsums are pinned to HIGHEST precision** — a
+      single-pass bf16 or TF32 product injects ~1e-3 noise into the shared
+      Gram and the X/R updates, which was measured to blow the iteration
       count up ~8× at β=16.
     """
     B = jnp.asarray(B)
@@ -338,11 +338,11 @@ def block_cg(
 
     def gram(U, W):
         # [..., a, b] = Σ_{N,Lτ} U[..., a]·W[..., b]. Precision MUST be
-        # HIGHEST: on TPU the default einsum precision is single-pass bf16,
-        # whose noise in the shared Gram corrupts every column's α/β and
-        # blows the iteration count up ~8× (measured on-chip at β=16 —
-        # scripts/bench_block.py; the CPU studies ran full f32 and were
-        # blind to it). The contraction is s×s-small, so the cost is nil.
+        # HIGHEST: a backend's default einsum precision may be one-pass
+        # bf16 or TF32, whose noise in the shared Gram corrupts every
+        # column's α/β and blows the iteration count up ~8× (measured at
+        # β=16 — scripts/bench_block.py; the CPU studies ran full f32 and
+        # were blind to it). The contraction is s×s-small, so the cost is nil.
         return _ps(jnp.einsum("...aij,...bij->...ab", U, W,
                               precision=lax.Precision.HIGHEST))
 
@@ -358,10 +358,10 @@ def block_cg(
         per-iteration column normalization of Pd bought, at s×s cost
         instead of two full-field passes (it cancels identically in the
         X/R updates). s=2 (the spin-stacked trajectory solves) uses the
-        closed-form 2×2 inverse: on TPU a batched LU is ~100 µs of
-        latency-bound non-MXU work per call, two calls per iteration —
-        the measured reason block CG lost wall time while winning
-        iterations (scripts/bench_block.py)."""
+        closed-form 2×2 inverse: a batched LU is a latency-bound chain of
+        small kernels, two calls per iteration (the cost that made block
+        CG lose wall time while winning iterations, scripts/bench_block.py;
+        not measured on H100)."""
         dg = jnp.diagonal(G, axis1=-2, axis2=-1)
         sc = 1.0 / jnp.sqrt(jnp.where(dg > 0, dg, 1.0))
         Gh = G * sc[..., :, None] * sc[..., None, :]

@@ -2,12 +2,13 @@
 
 The reference is Float64 throughout (it is a CPU Julia code;
 IterativeSolvers.jl's κ-abort exists because MᵀM becomes ill-conditioned).
-On TPU, f64 is software-emulated and slow, so the framework keeps fields in
-f32 and makes the *reductions* robust instead:
+On accelerators f64 is slow (emulated, or a small fraction of the f32
+rate), so the framework keeps fields in f32 and makes the *reductions*
+robust instead:
 
 * under ``jax.config.jax_enable_x64`` (CPU parity mode) every dot product,
   norm and action/energy sum accumulates in f64 (:func:`fdot`/:func:`fsum`);
-* without x64 (TPU production) the same reductions run with exact
+* without x64 (f32 production) the same reductions run with exact
   Veltkamp/Dekker two-products and a separately summed error channel, which
   removes the O(n·ε) product-rounding term and leaves only the O(log n·ε)
   tree-reduction error of XLA's summation.
@@ -113,7 +114,7 @@ def fsum(a, axis=None):
 def fdot(a, b, axis=(-2, -1)):
     """Accurate batched inner product ``Σ a·b`` over ``axis``.
 
-    f64 accumulation under x64; in pure-f32 (TPU) mode, exact two-products
+    f64 accumulation under x64; in pure-f32 mode, exact two-products
     feed a double-f32 pairwise reduction, so the result is accurate to ~1 ulp
     of the true dot — the product-rounding O(n·ε) and summation O(log n·ε)
     error terms are both eliminated.

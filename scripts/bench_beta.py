@@ -1,4 +1,4 @@
-"""Deep-β (imaginary-time) scaling of the HMC hot loop on the real TPU chip.
+"""Deep-β (imaginary-time) scaling of the HMC hot loop on the GPU.
 
 Produces the BASELINE.md β-table: sweeps/s/chip, CG iters/solve and
 acceptance for the north-star Holstein (and optionally SSH) HMC config at
@@ -124,7 +124,7 @@ def main():
     ap.add_argument("--dt", type=float, default=0.05,
                     help="leapfrog dt (dH grows ~N·dt^4: shrink at large L)")
     ap.add_argument("--dense-threshold", type=int, default=2048,
-                    help="sites at or below use the dense-MXU exp(-dtau K)")
+                    help="sites at or below use the dense-matmul exp(-dtau K)")
     ap.add_argument("--chains", type=int, default=0,
                     help="override the default chain-batch heuristic")
     ap.add_argument("--block", action="store_true",

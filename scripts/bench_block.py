@@ -90,7 +90,7 @@ def main():
         run_s = time.time() - tb
         print(f"conv dft_matmul={str(dft):>5}: {args.steps*args.chains/run_s:>8.1f} "
               f"pair-tensor builds/s ({run_s:.2f}s)", flush=True)
-    GR.DFT_MATMUL = None
+    GR.DFT_MATMUL = False
 
     # near-null two-level arms (ops/nearnull.py): the estimator solves are
     # FROM-ZERO (no warm start to pre-remove the slow modes), the regime the

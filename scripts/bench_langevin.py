@@ -73,7 +73,7 @@ def main():
     it = float(jnp.mean(jnp.stack(its).astype(jnp.float32)))
     print(f"device={jax.devices()[0]} L={args.L} beta={args.beta} "
           f"method={args.method} chains={args.chains} "
-          f"dense_ckb={spec.dense_ckb} pallas={spec.pallas_fold}")
+          f"dense_ckb={spec.dense_ckb}")
     print(f"{rate:.0f} timesteps/s/chip, {it:.1f} CG iters per force solve "
           f"({dt:.2f}s for {args.steps} steps)")
 

@@ -1,9 +1,7 @@
 """Split in-loop operator precision A/B ([solver] loop_precision).
 
-The op-level profile (BASELINE.md) shows the f32-HIGHEST fermion-operator
-matmuls are ~39% of device self-time at 32×32. This measures the full HMC
-update with the in-CG-loop matvecs at HIGHEST (reference-faithful) vs HIGH
-(bf16×3, ~half the MXU passes), with verification/retry/forces/endpoints
+This measures the full HMC update with the in-CG-loop matvecs at HIGHEST
+(reference-faithful) vs "high" (the 3-pass bf16 algorithm), with verification/retry/forces/endpoints
 kept at HIGHEST either way (dynamics/solve._cg_operators).
 
 Reports sweeps/s, CG iters/solve, acceptance, mean |ΔH|, and flag counts —

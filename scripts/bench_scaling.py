@@ -1,19 +1,13 @@
-"""End-to-end HMC throughput vs lattice size on the real TPU chip.
+"""End-to-end HMC throughput vs lattice size on the GPU.
 
-Produces the BASELINE.md scaling table: sweeps/s/chip, CG iters/solve,
-acceptance, per-CG-iteration wall time and estimated MFU for the north-star
-HMC config at 8×8 … 64×64, with the chain batch scaled down as the
-per-chain footprint grows.
-
-MFU here is the analytic FLOP count of the dominant per-iteration tensor
-ops (fermion MᵀM apply + symmetric-KPM Chebyshev pair + DFT transforms)
-divided by wall time, against the chip's bf16 peak — the same convention as
-BASELINE.md's throughput analysis.
+Prints sweeps/s/chip, CG iters/solve, acceptance and per-CG-iteration wall
+time for the north-star HMC config at 8×8 … 64×64, with the chain batch
+scaled down as the per-chain footprint grows. (A utilization column needs a
+peak table keyed by device kind, which the benchmark will bring.)
 
 Run from the repo root: python scripts/bench_scaling.py
-  [--dense-threshold N]   sites at or below run the dense-MXU exp(-dtau K)
-                          path (default 2048: 64x64 uses the group fold,
-                          which wins 3x there -- see BASELINE.md)
+  [--dense-threshold N]   sites at or below run the dense-matmul exp(-dtau K)
+                          path (default 2048: 64x64 uses the group fold)
   [--sizes 8,16,32,64] [--steps 6] [--max-order 4]
 """
 
@@ -27,8 +21,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-BF16_PEAK = 197e12  # TPU v5e
 
 
 def main():
@@ -54,7 +46,7 @@ def main():
     print(f"device={jax.devices()[0]} dense_threshold={args.dense_threshold} "
           f"max_order={args.max_order}")
     print(f"{'L':>4} {'N':>6} {'chains':>7} {'sweeps/s':>9} {'iters':>6} "
-          f"{'acc':>6} {'us/iter':>8} {'MFU%':>6}")
+          f"{'acc':>6} {'us/iter':>8}")
     for L in [int(s) for s in args.sizes.split(",")]:
         chains = chains_of.get(L, 16)
         uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
@@ -92,25 +84,11 @@ def main():
         iters = float(jnp.mean(stats.iters.astype(jnp.float32)))
         acc = float(jnp.mean(stats.accepted))
 
-        # ---- analytic per-iteration FLOPs (per chain, both spins)
-        N, Lt = spec.Nsites, spec.Ltau
-        Lw = (Lt + 1) // 2
-        nb = spec.ckb.nbonds
-        spins = 2
-        if spec.dense_ckb:
-            f_ferm = spins * 4 * N * N * Lt           # mulM+mulMT dense
-        else:
-            f_ferm = spins * 16 * nb * Lt             # fold gather+FMA
-        f_cheb = spins * 16 * args.max_order * N * N * Lw  # complex pair
-        f_dft = spins * 16 * N * Lt * Lw
-        f_iter = f_ferm + f_cheb + f_dft
         n_solves = cfg.Nt + 2
-        total_iters_s = sweeps * n_solves * iters      # chain-iters per s
-        mfu = total_iters_s * f_iter / BF16_PEAK * 100
         us_iter = 1e6 * dt / (args.steps * n_solves * iters)  # batch us/iter
 
-        print(f"{L:>4} {N:>6} {chains:>7} {sweeps:>9.1f} {iters:>6.1f} "
-              f"{acc:>6.3f} {us_iter:>8.0f} {mfu:>6.2f}", flush=True)
+        print(f"{L:>4} {spec.Nsites:>6} {chains:>7} {sweeps:>9.1f} {iters:>6.1f} "
+              f"{acc:>6.3f} {us_iter:>8.0f}", flush=True)
 
 
 if __name__ == "__main__":

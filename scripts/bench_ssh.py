@@ -1,5 +1,5 @@
 """SSH headline benchmark: optical SSH 8×8, β=4, α=0.25, ω=0.5, KPM-CG HMC
-(the BASELINE.md SSH row). Run from the repo root on the TPU chip."""
+(the BASELINE.md SSH row). Run from the repo root on the GPU."""
 
 import os
 import sys

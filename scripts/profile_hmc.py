@@ -1,4 +1,4 @@
-"""Op-level XLA profile of the HMC hot loop on the real TPU chip.
+"""Op-level XLA profile of the HMC hot loop on the GPU.
 
 Captures a ``jax.profiler.trace`` of a few north-star HMC steps at a given
 lattice size, then parses the xplane protobuf with the installed xprof

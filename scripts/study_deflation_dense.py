@@ -1,7 +1,7 @@
 """CPU/f64 ground truth for deflated KPM-CG at deep beta (4x4, beta=16).
 
 Needs an equilibrated field dump at /tmp/x_4x4_b16.npz — produce it on the
-TPU with:  python scripts/study_deep_beta.py 16 4  (or any equilibration
+GPU with:  python scripts/study_deep_beta.py 16 4  (or any equilibration
 that saves np.savez(path, x=field)).
 
 Densifies MtM and the symmetric KPM P^-1, computes the exact lowest-k
@@ -113,7 +113,7 @@ for k in (16, 32, 64):
     # projected/coarse correction every iteration
     _, it_proj = pcg(A, Pinv_ap, b, coarse=(W, G))
     _, it_both = pcg(A, Pinv_ap, b, x0=x0, coarse=(W, G))
-    # f32-truncated W (TPU storage realism)
+    # f32-truncated W (f32 production storage)
     Wf = W.astype(np.float32).astype(np.float64)
     Gf = Wf.T @ A @ Wf
     x0f = Wf @ np.linalg.solve(Gf, Wf.T @ b)

@@ -1,11 +1,11 @@
 """Accurate-accumulation primitives and the f32 robustness story.
 
-The reference is f64 throughout; on TPU the fields are f32 and only the
+The reference is f64 throughout; here the fields are f32 and only the
 reductions are hardened (utils/dtypes.fdot/fsum). These tests pin:
 
 1. the Dekker two-product is exact;
 2. compensated f32 dots beat naive f32 summation against f64 ground truth;
-3. TPU-mode (f32 fields) end-to-end observables match exact diagonalization
+3. f32-mode (f32 fields) end-to-end observables match exact diagonalization
    on the single-site north-star;
 4. an ill-conditioned MᵀM solve (β=8, λ=1.5 — the regime that motivated the
    reference's κ-abort, IterativeSolvers.jl:198-231) converges cleanly with
@@ -31,7 +31,7 @@ def test_two_product_exact():
 
 
 def test_fdot_double_f32_is_ulp_accurate():
-    """With x64 disabled (TPU production mode) the two-product + double-f32
+    """With x64 disabled (f32 production mode) the two-product + double-f32
     pairwise reduction must return the dot correct to ~1 ulp of the result —
     far beyond a plain f32 sum-of-products."""
     rng = np.random.default_rng(1)
@@ -79,7 +79,7 @@ def test_fdot_f64_accumulation_of_f32_fields():
 
 @pytest.mark.slow
 def test_f32_single_site_observables_match_ed():
-    """TPU-mode dtype (f32 fields) through the full HMC + estimator +
+    """Production dtype (f32 fields) through the full HMC + estimator +
     measurement pipeline must reproduce exact diagonalization as well as the
     f64 path does (VERDICT r1 missing #3)."""
     from elphdynamics_tpu.dynamics.hmc import HMCConfig

@@ -117,34 +117,3 @@ def test_ckb_approximates_matrix_exponential():
     exact = scipy.linalg.expm(-dtau * K)
     approx = ckb_matrix(spec, cosh_b, sinh_b)
     assert np.max(np.abs(approx - exact)) < 5 * dtau ** 2
-
-
-def test_pallas_fused_fold_matches_xla():
-    """The fused Pallas group fold (interpret mode on CPU) must match the XLA
-    group fold for all four variants, including non-square lattices."""
-    import jax
-    import jax.numpy as jnp
-    from elphdynamics_tpu.lattice import Lattice, UnitCell
-    from elphdynamics_tpu.models.holstein import build_holstein
-    from elphdynamics_tpu.ops import checkerboard as ckb
-    from elphdynamics_tpu.ops import ckb_pallas
-
-    uc = UnitCell.create(2, 1, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]])
-    lat = Lattice.create(uc, 6)
-    spec, params = build_holstein(
-        lat, beta=1.0, dtau=0.1,
-        t_assignments=[(1.0, 0.1, 0, 0, (1, 0, 0)), (0.8, 0.1, 0, 0, (0, 1, 0))],
-        omega=1.0, lam=0.5, mu=0.0, dense_threshold=0,
-        rng=np.random.default_rng(0))
-    v = jax.random.normal(jax.random.PRNGKey(0), (spec.Nsites, 16))
-    for rev, sgn, xla_fn in (
-        (False, 1.0, ckb.ckb_mul),
-        (True, 1.0, ckb.ckb_transpose_mul),
-        (True, -1.0, ckb.ckb_inverse_mul),
-        (False, -1.0, ckb.ckb_inverse_transpose_mul),
-    ):
-        ref = np.asarray(xla_fn(spec.ckb, params.cosht, params.sinht, v))
-        got = np.asarray(ckb_pallas.fold_2d(
-            spec.ckb, params.cosht, params.sinht, v,
-            reverse=rev, sign=sgn, interpret=True))
-        np.testing.assert_allclose(got, ref, atol=1e-10, err_msg=f"{rev} {sgn}")

@@ -3,7 +3,7 @@
 The reference is type-generic over complex matrix elements — ``Continuous =
 Union{AbstractFloat,Complex}`` (Models.jl:20), ``conj(s)`` on the second
 bond endpoint (Checkerboard.jl:78,116,137), complex ``Bond{T}``
-(Models.jl:32-56). This exercises the TPU build's complex surface: the
+(Models.jl:32-56). This exercises this package's complex surface: the
 Hermitian checkerboard tables, mulM / mulMT (≡ M†) / mulMTM (≡ M†M), the
 dense expK fast path, and the Hermitian-inner-product CG
 (utils/dtypes.fdot) — against independent dense numpy constructions at f64
@@ -314,7 +314,7 @@ def test_special_updates_on_twisted_lattice():
 # ---------------------------------------------------------------------------
 # SSH complex hopping (VERDICT r4 item 5): the reference's type surface is
 # generic over complex matrix elements for BOTH models (Models.jl:20,
-# SSHModels.jl parameterized over T2); the TPU build threads the Peierls
+# SSHModels.jl parameterized over T2); this package threads the Peierls
 # phases through the time-dependent per-(τ,bond) checkerboard tables and
 # the muldMdx group fold (the phonon is real — only the bare amplitude
 # carries a phase).

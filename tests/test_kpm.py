@@ -260,77 +260,12 @@ def test_kpm_complex_applies_are_mutually_adjoint_and_symmetric_is_psd():
     assert quad.real > 0.0
 
 
-def test_fused_pallas_chebyshev_matches_matmul_path():
-    """The fused-kernel Chebyshev recurrence
-    (kpm._chebyshev_apply_stacked_pallas, interpret mode on CPU) must match
-    the dense-matmul stacked recurrence exactly up to rounding — same
-    spectral window, same exp(−Δτ·V̄) diagonal placement for both the
-    forward and the transposed pass, same per-ω coefficient combine."""
-    ops, params, x = make_model(L=4)
-    st = kpm.setup(ops, params, x, kpm.KPMConfig(max_order=8),
-                   jax.random.PRNGKey(0))
-    assert st.expK is not None  # small N: the reference path is dense
-    st_fold = st._replace(expK=None, expK_inv=None)
-
-    rng = np.random.default_rng(3)
-    Lw = (ops.Ltau + 1) // 2
-    w = jnp.asarray(rng.standard_normal((2, ops.Nsites, 2 * Lw)))
-    for transposed in (False, True):
-        ref = np.asarray(kpm._chebyshev_apply_stacked(
-            ops, st, w, st.coeff, transposed=transposed))
-        got = np.asarray(kpm._chebyshev_apply_stacked_pallas(
-            ops, st_fold, w, st.coeff, transposed=transposed,
-            interpret=True))
-        np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-9)
-
-
-def test_fold_kn_fused_epilogue_matches_composition():
-    """fold_kn_fused's pre/post diagonals and a/b/c affine epilogue equal
-    the explicit composition with the XLA group fold."""
-    from elphdynamics_tpu.ops import checkerboard as ckb_mod
-    from elphdynamics_tpu.ops.ckb_pallas import fold_kn_fused
-
-    ops, params, _ = make_model(L=4)
-    sc = ops.spec.ckb
-    rng = np.random.default_rng(5)
-    K = 16
-    vkn = jnp.asarray(rng.standard_normal((K, ops.Nsites)))
-    prev = jnp.asarray(rng.standard_normal((K, ops.Nsites)))
-    pre = jnp.asarray(rng.uniform(0.5, 1.5, ops.Nsites))
-    post = jnp.asarray(rng.uniform(0.5, 1.5, ops.Nsites))
-    a, b, c = 1.7, -0.3, 0.9
-    for reverse in (False, True):
-        fold = (ckb_mod.ckb_transpose_mul if reverse else ckb_mod.ckb_mul)
-        want = a * (post[None, :] * np.asarray(fold(
-            sc, params.cosht, params.sinht,
-            (vkn * pre[None, :]).T)).T) + b * np.asarray(vkn) \
-            + c * np.asarray(prev)
-        got = np.asarray(fold_kn_fused(
-            sc, params.cosht, params.sinht, vkn, reverse=reverse,
-            pre=pre, post=post, a=a, b=b, c=c, prev=prev, interpret=True))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-
-
-def test_dense_abar_gate_routing(monkeypatch):
-    """The Ā densification gate: dense up to 4096 sites everywhere EXCEPT
-    when the fused Pallas fold will actually take over (TPU backend, real
-    hopping, N above the Pallas floor) — complex hopping and CPU builds
-    must never fall onto the slow XLA group fold (BASELINE.md §Pallas
-    KPM: 1.7 vs 9.3/12.7 sweeps/s at 64×64)."""
-    real = jnp.ones(4)
-    cplx = jnp.ones(4) + 0j
-
-    # CPU backend (this process): always densify up to the cap
-    for n in (64, 2048, 4096):
-        assert kpm._dense_abar_gate(n, real)
-        assert kpm._dense_abar_gate(n, cplx)
-    assert not kpm._dense_abar_gate(4097, real)
-
-    # pretend-TPU backend: real hopping above the Pallas floor folds,
-    # complex keeps the dense path
-    monkeypatch.setattr(kpm.jax, "default_backend", lambda: "tpu")
-    assert kpm._dense_abar_gate(2048, real)       # at the floor: dense
-    assert not kpm._dense_abar_gate(4096, real)   # above: Pallas fold
-    assert kpm._dense_abar_gate(4096, cplx)       # complex: dense
-    assert kpm._pallas_fold_available(real)
-    assert not kpm._pallas_fold_available(cplx)
+def test_dense_abar_gate_routing():
+    """The Ā densification gate is a size rule alone: dense up to
+    _DENSE_ABAR_MAX_SITES sites for real and complex hopping alike, the
+    group fold above it, on every backend."""
+    cap = kpm._DENSE_ABAR_MAX_SITES
+    for n in (64, 2048, cap):
+        assert kpm._dense_abar_gate(n)
+    assert not kpm._dense_abar_gate(cap + 1)
+    assert not kpm._dense_abar_gate(4 * cap)
